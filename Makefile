@@ -14,7 +14,7 @@ EXTENSIONS  ?= jpg JPG jpeg JPEG
 S3_BUCKET   ?=
 CLOUDFRONT_DISTRIBUTION_ID ?=
 
-.PHONY: generate upload deploy test bench native clean
+.PHONY: generate upload deploy test smoke native clean
 
 generate:
 	mkdir -p $(OUTPUT_DIR)
@@ -42,8 +42,8 @@ native:
 test:
 	$(PYTHON) -m pytest tests/ -x -q
 
-bench:
-	$(PYTHON) bench.py
+smoke:
+	$(PYTHON) chip_smoke.py
 
 clean:
 	rm -rf $(OUTPUT_DIR) native/*.so native/*.o

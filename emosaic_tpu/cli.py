@@ -17,7 +17,7 @@ Behavioral parity notes (quirks preserved, SURVEY.md 'quirks ledger'):
 
 Additions over the reference: --seed (explicit RNG; the reference is
 irreproducible thread_rng), --matcher {auto,lut,pallas,xla},
---metric {l1,l2} (MXU fast mode), --stream-threshold (gigapixel banded
+--metric {l1,l2} (matmul fast mode), --stream-threshold (gigapixel banded
 PNG streaming), and --profile DIR (jax.profiler trace).
 """
 
@@ -168,7 +168,7 @@ class _ExtendExtensions(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="emosaic-tpu",
-        description="TPU-native photomosaic generator (emosaic-compatible)",
+        description="JAX photomosaic generator (emosaic-compatible)",
     )
     p.add_argument(
         "-s",
@@ -276,7 +276,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--matcher",
         choices=["auto", "lut", "pallas", "xla", "hybrid"],
         default="auto",
-        help="Matching kernel selection; 'hybrid' = MXU L2 prefilter + "
+        help="Matching kernel selection: 'lut' forces the mode-1 lookup "
+        "table, 'pallas' and 'xla' skip it, 'auto' takes it where it wins; "
+        "the dense exact-L1 route is the device's measured fastest "
+        "(ops/backend.py); 'hybrid' = L2 matmul prefilter + "
         "exact-L1 rescore, the approximate fast mode for high-N modes "
         "(PARITY deviation; also accelerates --no-repeat scoring)",
     )
@@ -284,8 +287,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--metric",
         choices=["l1", "l2"],
         default="l1",
-        help="Color distance: l1 (exact reference parity) or l2 (MXU fast "
-        "mode, performance addition)",
+        help="Color distance: l1 (exact reference parity) or l2 (matmul "
+        "fast mode, performance addition)",
     )
     m.add_argument(
         "--stream-threshold",
@@ -297,9 +300,10 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument(
         "--max-stack-bytes",
         type=int,
-        default=8 << 30,
-        help="Tile-stack memory cap; beyond it the composite streams tiles "
-        "from the disk cache (huge tile_size x library combos)",
+        default=None,
+        help="Tile-stack memory cap (default: a share of the device's "
+        "memory); beyond it the composite streams tiles from the disk "
+        "cache (huge tile_size x library combos)",
     )
     m.add_argument(
         "--png-compress-level",
@@ -420,13 +424,18 @@ def get_image_stack(
     tile_set: TileSet,
     tiles_dir: Path,
     tile_size: int,
-    max_bytes: int = 8 << 30,
+    max_bytes: int | None = None,
 ) -> np.ndarray | None:
     """Prepared-tile stack with its persistent cache.
 
-    Returns None when the dense stack would exceed `max_bytes` (e.g.
+    Returns None when the dense stack would exceed `max_bytes` (default:
+    `backend.device_stack_bytes()`, a share of the device's memory; e.g.
     100k tiles at tile_size 1024 is ~300 GB) — the composite then streams
     tiles from the disk cache instead (ops.composite.iter_bands_host)."""
+    if max_bytes is None:
+        from emosaic_tpu.ops.backend import device_stack_bytes
+
+        max_bytes = device_stack_bytes()
     if len(tile_set) * tile_size * tile_size * 3 > max_bytes:
         log(
             "⚠️  Tile stack too large for memory; compositing will stream "
@@ -491,9 +500,12 @@ def run_mosaic(args, timer=None) -> None:
         from emosaic_tpu.errors import ImageError
         from emosaic_tpu.io.prep import prepare_tile as _prep
 
-        keep_stack = (
-            len(images) * args.tile_size**2 * 3 <= args.max_stack_bytes
-        )
+        from emosaic_tpu.ops.backend import device_stack_bytes
+
+        max_stack = args.max_stack_bytes
+        if max_stack is None:
+            max_stack = device_stack_bytes()
+        keep_stack = len(images) * args.tile_size**2 * 3 <= max_stack
         good, prepared = [], []
         for p in images:
             try:

@@ -51,7 +51,7 @@ class MemoryMonitor:
 def get_device_memory_stats() -> list[dict] | None:
     """Per-device HBM usage from the XLA allocator.
 
-    The TPU-side analogue of the reference's RSS sampling
+    The device-side analogue of the reference's RSS sampling
     (main.rs:157-216): /proc RSS cannot see device HBM, so the runtime
     report also surfaces the backend allocator's own counters
     (current/peak bytes in use, device limit). Returns None on backends
@@ -106,7 +106,7 @@ def print_runtime_stats(start_time: float, monitor: MemoryMonitor, log=None):
 
 
 class PhaseTimer:
-    """Per-phase wall timers printed at exit — the TPU-side analogue of the
+    """Per-phase wall timers printed at exit — the device-side analogue of the
     reference's per-stage progress throughput (SURVEY.md section 5
     'tracing/profiling')."""
 

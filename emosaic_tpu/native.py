@@ -5,11 +5,18 @@ sequential no-repeat assignment loops and per-image scans. All entry
 points have pure-Python fallbacks (render/greedy.py, io/prep.py) used when
 the shared library is absent; `load()` builds it on demand with `make`
 when a toolchain is available.
+
+The library is built with `-march=native`, so a binary is only loaded on
+the machine that built it: a stamp beside it records the source hash and
+the boot id of the building host, and any mismatch (a binary copied in
+with the checkout, a changed source) forces a clean rebuild.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import platform
 import subprocess
 from pathlib import Path
 
@@ -17,6 +24,7 @@ import numpy as np
 
 _NATIVE_DIR = Path(__file__).parent.parent / "native"
 _LIB_NAME = "libemosaic_native.so"
+_STAMP_NAME = ".build_stamp"
 _lib = None
 _load_attempted = False
 
@@ -41,6 +49,28 @@ def load() -> ctypes.CDLL | None:
     _load_attempted = True
     _lib = _load_inner(rebuild=False)
     return _lib
+
+
+def build_key() -> str:
+    """Identity of a valid build here: the tracked sources plus this boot
+    of this machine."""
+    h = hashlib.sha1()
+    for name in ("emosaic_native.cpp", "Makefile"):
+        p = _NATIVE_DIR / name
+        h.update(p.read_bytes() if p.exists() else b"")
+    try:
+        h.update(Path("/proc/sys/kernel/random/boot_id").read_bytes())
+    except OSError:
+        h.update(platform.node().encode())
+    return h.hexdigest()
+
+
+def _built_here() -> bool:
+    stamp = _NATIVE_DIR / _STAMP_NAME
+    try:
+        return stamp.read_text().strip() == build_key()
+    except OSError:
+        return False
 
 
 def _build(force: bool) -> bool:
@@ -68,6 +98,7 @@ def _build(force: bool) -> bool:
                 capture_output=True,
                 timeout=120,
             )
+            (_NATIVE_DIR / _STAMP_NAME).write_text(build_key())
         return True
     except Exception:
         return False
@@ -75,6 +106,9 @@ def _build(force: bool) -> bool:
 
 def _load_inner(rebuild: bool) -> ctypes.CDLL | None:
     path = _NATIVE_DIR / _LIB_NAME
+    if not rebuild and path.exists() and not _built_here():
+        # built on another machine or from other sources: never load it
+        rebuild = True
     if rebuild or not path.exists():
         # rebuild=True forces `make -B`: a stale .so from an older source
         # tree may load but miss newly added symbols

@@ -23,8 +23,8 @@ import numpy as np
 
 @functools.partial(jax.jit, static_argnames=("h", "w", "dim"))
 def _analyse_batch_2d(tiles2d: jax.Array, *, h: int, w: int, dim: int) -> jax.Array:
-    """tiles2d [T, h*w*3] u8 -> palettes [T, N*3] u8 (2D jit boundaries —
-    see ops/composite.py TPU layout note)."""
+    """tiles2d [T, h*w*3] u8 -> palettes [T, N*3] u8 (2D jit boundaries,
+    channels interleaved in the minor dim)."""
     t = tiles2d.shape[0]
     bh = h // dim
     bw = w // dim
@@ -46,9 +46,9 @@ def _analyse_batch_jit(tiles: jax.Array, dim: int) -> jax.Array:
     if h // dim == 0 or w // dim == 0:
         raise ValueError(f"tile {h}x{w} smaller than {dim}x{dim} grid")
     if (h // dim) * (w // dim) > (2**31 - 1) // 255:
-        # the box sum accumulates in int32 (TPU-native width); a >8.4M-px
-        # box would wrap silently. Unreachable via the CLI (tile size is
-        # capped at 1024), but this is a public op (review r4).
+        # the box sum accumulates in int32; a >8.4M-px box would wrap
+        # silently. Unreachable via the CLI (tile size is capped at
+        # 1024), but this is a public op.
         raise ValueError(
             f"box {h // dim}x{w // dim} too large: per-channel sums exceed "
             "int32 (max ~8.4M pixels per box)"
@@ -74,9 +74,9 @@ def analyse_batch(tiles, dim: int) -> jax.Array:
     if h // dim == 0 or w // dim == 0:
         raise ValueError(f"tile {h}x{w} smaller than {dim}x{dim} grid")
     if (h // dim) * (w // dim) > (2**31 - 1) // 255:
-        # the box sum accumulates in int32 (TPU-native width); a >8.4M-px
-        # box would wrap silently. Unreachable via the CLI (tile size is
-        # capped at 1024), but this is a public op (review r4).
+        # the box sum accumulates in int32; a >8.4M-px box would wrap
+        # silently. Unreachable via the CLI (tile size is capped at
+        # 1024), but this is a public op.
         raise ValueError(
             f"box {h // dim}x{w // dim} too large: per-channel sums exceed "
             "int32 (max ~8.4M pixels per box)"

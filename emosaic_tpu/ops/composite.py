@@ -11,20 +11,11 @@ select the horizontally mirrored tile image. The augmented stack holds
 unassigned-block case (item 0 -> black, like the reference's skipped
 blocks in rendering.rs:349-351) are plain row selection.
 
-Three composite paths, fastest first (per 1.61 GB band, measured v5e):
-  1. `_compose_rows_dma` (~11 ms): a Pallas kernel with scalar-prefetched
-     row indices issuing per-tile DMA gathers HBM->VMEM (statically
-     unrolled — the path is scalar-issue-rate bound) and writing the
-     band in final row-major layout — no intermediate buffer at all.
-  2. `_compose_rows_pallas` (~27 ms): XLA row gather into a pre-tiled
-     [*, ts, lane] intermediate + a VMEM-blocked transpose kernel.
-  3. `_compose_rows_xla` (~64 ms, portable): gather + XLA transpose.
-
-TPU layout notes: arrays crossing the jit boundary are kept 2D/3D with
-large minor dimensions — a `u8[..., 3]` boundary buffer gets the
-(8,128)-lane tiled layout on the size-3 minor dim (~42x inflation;
-observed: a 1.6 GB band would allocate 64 GB). Stack rows are lane-padded
-to multiples of 128 because DMA slices must be 128-aligned.
+The composite is one XLA row gather plus a transpose into the band's
+final row-major layout (`_compose_rows_xla`): pure data movement, which
+XLA fuses on the GPU (H100 band times against a plain device copy are in
+docs/KERNELS.md). Pixel data crosses the jit boundary as `[rows,
+width*3]` u8 with the three channels interleaved in the minor dimension.
 """
 
 from __future__ import annotations
@@ -35,29 +26,6 @@ from typing import Iterator
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-#: tiles per transpose/DMA chunk (block columns are padded to this)
-_CH = 128
-#: scalar-prefetch row indices must fit SMEM (1 MB): 512 KB of int32
-_DMA_MAX_ROWS = 131072
-#: VMEM budget for the DMA path's scratch + out blocks
-_DMA_VMEM_BUDGET = 10 * 2**20
-#: stack-byte ceiling for the DMA path: Pallas dynamic `.at[row]` byte
-#: offsets wrap mod 2^32 (measured on the distance DMA kernel at a
-#: 6.1 GB buffer — distance._DMA_LIB_BYTES_MAX / SCALE_r03 M_dma_limit),
-#: so a >4 GiB augmented stack (e.g. ~131k tiles at ts=64 after
-#: mirroring + lane padding) would fetch mod-aliased tile rows. Route
-#: such stacks to `_compose_rows_pallas`: its row gather is XLA
-#: (64-bit-safe; the megascale scale runs sliced 6.1 GB buffers via XLA
-#: exactly), only its band-sized transpose input enters Pallas.
-_DMA_STACK_BYTES_MAX = 1 << 32
-
-
-def _lane(ts: int) -> int:
-    """Padded row width for a [ts, ts*3] tile row (128-aligned for DMA)."""
-    return -(-ts * 3 // 128) * 128
 
 
 def _rows_of(items: jax.Array, t: int):
@@ -70,171 +38,33 @@ def _rows_of(items: jax.Array, t: int):
 
 @functools.partial(jax.jit, static_argnames=("ts",))
 def _compose_rows_xla(items: jax.Array, aug3: jax.Array, *, ts: int):
-    """Portable path: gather + XLA transpose.
-    items [nby, nbx] i32, aug3 [2T+1, ts, lane] u8 -> [nby*ts, nbx*ts*3]."""
+    """Gather + transpose. items [nby, nbx] i32, aug3 [2T+1, ts, ts*3] u8
+    -> band [nby*ts, nbx*ts*3] u8."""
     nby, nbx = items.shape
     t = aug3.shape[0] // 2
-    sel = aug3[_rows_of(items, t)][:, :, : ts * 3]  # [B, ts, ts*3]
+    sel = aug3[_rows_of(items, t)]  # [B, ts, ts*3]
     band = sel.reshape(nby, nbx, ts, ts * 3)
     return jnp.transpose(band, (0, 2, 1, 3)).reshape(nby * ts, nbx * ts * 3)
 
 
-def _tr_kernel(in_ref, out_ref, *, s3: int):
-    # [CH, ts, lane] tile chunk -> [ts, CH*ts*3] band segment; explicit
-    # per-tile copies (a jnp 3D transpose crashes the Mosaic compiler, and
-    # element-gather formulations run ~4-8x slower — measured on v5e)
-    for c in range(_CH):
-        out_ref[:, c * s3 : (c + 1) * s3] = in_ref[c][:, :s3]
-
-
-@functools.partial(jax.jit, static_argnames=("ts", "interpret"))
-def _compose_rows_pallas(
-    items: jax.Array, aug3: jax.Array, *, ts: int, interpret: bool = False
-):
-    """TPU middle path: row gather from the pre-tiled stack + VMEM-blocked
-    transpose kernel. Requires ts % 8 == 0 and nbx % _CH == 0."""
-    nby, nbx = items.shape
-    t = aug3.shape[0] // 2
-    lane = aug3.shape[2]
-    sel = aug3[_rows_of(items, t)]  # [B, ts, lane], tiled layout
-    nj = nbx // _CH
-    return pl.pallas_call(
-        functools.partial(_tr_kernel, s3=ts * 3),
-        grid=(nby, nj),
-        interpret=interpret,
-        in_specs=[
-            pl.BlockSpec(
-                (_CH, ts, lane),
-                lambda i, j: (i * nj + j, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (ts, _CH * ts * 3), lambda i, j: (i, j), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nby * ts, nbx * ts * 3), jnp.uint8),
-    )(sel)
-
-
-def _dma_kernel(rows_ref, aug_hbm, out_ref, scratch, sems, *, s3: int):
-    """Fused gather+layout: per grid step, DMA _CH selected tile images
-    HBM->VMEM (row indices scalar-prefetched), then write them into the
-    band at their final positions. No HBM intermediate.
-
-    The issue/wait loops are statically unrolled: the path is bound by
-    the scalar core's per-copy issue rate, and a fori_loop's loop-carried
-    overhead nearly doubles it (4.97 -> 2.70 ms per 402 MB band measured
-    on v5e, tools/tpu_r3_experiments2.py C6; double-buffering the scratch
-    measured *slower* for the same reason, and sequential vs random row
-    indices measure the same, so HBM locality is not a factor)."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-    base = (i * nj + j) * _CH
-    for c in range(_CH):
-        pltpu.make_async_copy(
-            aug_hbm.at[rows_ref[base + c]], scratch.at[c], sems.at[c]
-        ).start()
-    for c in range(_CH):
-        pltpu.make_async_copy(aug_hbm.at[0], scratch.at[c], sems.at[c]).wait()
-    for c in range(_CH):
-        out_ref[:, c * s3 : (c + 1) * s3] = scratch[c][:, :s3]
-
-
-@functools.partial(jax.jit, static_argnames=("ts", "interpret"))
-def _compose_rows_dma(
-    items: jax.Array, aug3: jax.Array, *, ts: int, interpret: bool = False
-):
-    """TPU fast path (see module docstring). Caller guarantees
-    nby*nbx <= _DMA_MAX_ROWS, nbx % _CH == 0, ts % 8 == 0, VMEM budget."""
-    nby, nbx = items.shape
-    t = aug3.shape[0] // 2
-    lane = aug3.shape[2]
-    if not interpret and aug3.size > _DMA_STACK_BYTES_MAX:
-        # .at[row] offsets wrap mod 2^32 — aliased tile rows, silently
-        raise ValueError(
-            f"augmented stack of {aug3.size} bytes exceeds the DMA "
-            f"row-offset addressing limit ({_DMA_STACK_BYTES_MAX}); "
-            "use _compose_rows_pallas (see _compose_rows_2d dispatch)"
-        )
-    rows = _rows_of(items, t).astype(jnp.int32)
-    nj = nbx // _CH
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nby, nj),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((ts, _CH * ts * 3), lambda i, j, *_: (i, j)),
-        scratch_shapes=[
-            pltpu.VMEM((_CH, ts, lane), jnp.uint8),
-            pltpu.SemaphoreType.DMA((_CH,)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_dma_kernel, s3=ts * 3),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        out_shape=jax.ShapeDtypeStruct((nby * ts, nbx * ts * 3), jnp.uint8),
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(rows, aug3)
-
-
-def _dma_vmem_ok(ts: int) -> bool:
-    lane = _lane(ts)
-    return _CH * ts * lane + ts * _CH * ts * 3 <= _DMA_VMEM_BUDGET
-
-
-def _compose_rows_2d(items: jax.Array, aug3: jax.Array, *, ts: int):
-    """Dispatch: DMA-fused / pallas-transpose on TPU when shapes allow,
-    XLA otherwise. items [nby, nbx] i32 (caller pads columns), aug3
-    [2T+1, ts, lane] u8 (see `augment_stack2d`)."""
-    nby, nbx = items.shape
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if on_tpu and ts % 8 == 0 and nbx % _CH == 0:
-        if _dma_dispatch_ok(nby, nbx, ts, aug3.size):
-            return _compose_rows_dma(items, aug3, ts=ts)
-        return _compose_rows_pallas(items, aug3, ts=ts)
-    return _compose_rows_xla(items, aug3, ts=ts)
-
-
-def _dma_dispatch_ok(nby: int, nbx: int, ts: int, stack_bytes: int) -> bool:
-    """DMA fast-path admission: scalar-prefetch budget, VMEM budget, and
-    the 4 GiB row-offset addressing limit (`_DMA_STACK_BYTES_MAX`)."""
-    return (
-        nby * nbx <= _DMA_MAX_ROWS
-        and _dma_vmem_ok(ts)
-        and stack_bytes <= _DMA_STACK_BYTES_MAX
-    )
-
-
 def augment_stack2d(stack) -> tuple[jax.Array, int]:
-    """[T, ts, ts, 3] uint8 -> device [2T+1, ts, lane] stack: originals,
+    """[T, ts, ts, 3] uint8 -> device [2T+1, ts, ts*3] stack: originals,
     mirrored copies (the composite analogue of build_library's flip rows),
-    and a black row for unassigned blocks; rows lane-padded to 128."""
+    and a black row for unassigned blocks."""
     stack = np.asarray(stack, dtype=np.uint8)
     t, ts = stack.shape[0], stack.shape[1]
-    lane = _lane(ts)
-    aug = np.zeros((2 * t + 1, ts, lane), dtype=np.uint8)
-    aug[:t, :, : ts * 3] = stack.reshape(t, ts, ts * 3)
-    aug[t : 2 * t, :, : ts * 3] = stack[:, :, ::-1, :].reshape(t, ts, ts * 3)
+    aug = np.zeros((2 * t + 1, ts, ts * 3), dtype=np.uint8)
+    aug[:t] = stack.reshape(t, ts, ts * 3)
+    aug[t : 2 * t] = stack[:, :, ::-1, :].reshape(t, ts, ts * 3)
     return jnp.asarray(aug), ts
 
 
 def _compose_host(items_np: np.ndarray, aug3: jax.Array, ts: int) -> np.ndarray:
-    """Pad block columns for the kernel chunking, split rows to respect the
-    scalar-prefetch budget, compose, slice back."""
+    """Compose one band on the device and bring it to the host as
+    [nby*ts, nbx*ts, 3]."""
     nby, nbx = items_np.shape
-    nbxp = -(-nbx // _CH) * _CH
-    if nbxp != nbx:
-        items_np = np.pad(items_np, ((0, 0), (0, nbxp - nbx)))  # 0 = black
-    rows_per_call = max(1, _DMA_MAX_ROWS // nbxp)
-    parts = []
-    for y0 in range(0, nby, rows_per_call):
-        part = jnp.asarray(items_np[y0 : y0 + rows_per_call])
-        band = _compose_rows_2d(part, aug3, ts=ts)
-        h = part.shape[0] * ts
-        parts.append(np.asarray(jax.device_get(band)).reshape(h, nbxp * ts, 3))
-    out = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
-    return out[:, : nbx * ts] if nbxp != nbx else out
+    band = _compose_rows_xla(jnp.asarray(items_np), aug3, ts=ts)
+    return np.asarray(jax.device_get(band)).reshape(nby * ts, nbx * ts, 3)
 
 
 def compose_mosaic(items, stack) -> np.ndarray:
@@ -362,9 +192,10 @@ def ref_tint_blend_u8(bg_u8, fg_u8, alpha_255: int) -> np.ndarray:
 def _u8_over_255_f32(x_u8):
     """fl32(x / 255) for u8 x, computed WITHOUT a division.
 
-    TPU f32 division is reciprocal+Newton, not correctly rounded (the
-    on-chip exhaustive check caught ~7% off-by-one-ulp pixels through a
-    real fdiv) — so the quotient is built from exact operations only:
+    A device's f32 division need not be correctly rounded (reciprocal
+    plus refinement on some accelerators, and XLA rewrites division by a
+    constant into a reciprocal multiply on every backend) — so the
+    quotient is built from exact operations only:
     x/255 = p / (2^32 - 1) with p = x * 16843009 (exact: 255 * 16843009
     = 2^32 - 1). The u32->f32 convert rounds p to 24 bits (RNE); the
     true quotient exceeds p * 2^-32 by p * 2^-64 + ..., which matters
@@ -425,8 +256,8 @@ def _tint_blend_2d(band2d, src2d, scal, yi, xi3, *, bump: bool):
     compiler/hardware hazards are designed out (each one was CAUGHT
     producing off-by-one pixels by the exhaustive oracle check):
     - x/255 via compile-time constant: XLA strength-reduces to
-      x * (1/255.0). x/255 via runtime operand: exact on CPU but TPU
-      fdiv is reciprocal+Newton. -> no division at all; see
+      x * (1/255.0). x/255 via runtime operand: exact on CPU but not
+      guaranteed correctly rounded on accelerators. -> no division; see
       `_u8_over_255_f32` and the `bump` tail below.
     - mul feeding add: codegen contracts to FMA, skipping the product's
       rounding. -> products pass through abs(-x) (bit-identity for these

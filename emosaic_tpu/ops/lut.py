@@ -1,6 +1,6 @@
 """Exact L1 nearest-tile lookup table over the 256^3 RGB lattice (mode 1).
 
-TPU-first replacement for per-query kd-tree search (rendering.rs:192
+Device replacement for per-query kd-tree search (rendering.rs:192
 `nearest_one::<Manhattan>`) in 1to1 mode, where queries are single RGB
 pixels: precompute, for *every* possible color, the nearest library row
 under L1 — then matching any number of source blocks is a single gather.
@@ -13,8 +13,8 @@ Each lattice cell carries a packed int32 key `(dist << ROW_BITS) | row`, so
 every `min` is lexicographic on (distance, library row) — identical
 tie-breaking (lowest row wins) to `emosaic_tpu.ops.distance.l1_argmin`.
 
-Cost: ~50 vectorized passes over a 64 MiB lattice (~10 ms of HBM traffic on
-one v5e chip), after which gigapixel matching is memory-bound gather only.
+Cost: ~50 vectorized passes over a 64 MiB lattice, after which gigapixel
+matching is memory-bound gather only (neither measured on the H100 yet).
 """
 
 from __future__ import annotations
@@ -57,8 +57,7 @@ def _build_l1_lut_jit(lib: jax.Array) -> jax.Array:
     r, g, b = lib[:, 0], lib[:, 1], lib[:, 2]
     # lattice axes are [b, g, r]: the flat index b*65536 + g*256 + r equals
     # a little-endian-packed RGBX u32 masked to 24 bits, so packed sources
-    # index the table without any per-channel unpacking (strided
-    # channel extraction cost ~40% of match time on v5e)
+    # index the table without any per-channel unpacking
     # scatter-min: duplicate colors keep the lowest row (lexicographic key)
     lattice = lattice.at[b, g, r].min(rows)
 
@@ -114,8 +113,7 @@ def build_l1_lut(lib) -> jax.Array:
         # backend teardown deletes it); fall through to a rebuild then
         if hit is not None and not hit.is_deleted():
             return hit
-    # int32 flat boundary (a [L, 3] u8 buffer would pay the minor-dim-3
-    # tiled-layout inflation — see ops/composite.py TPU layout note)
+    # int32 flat boundary (channels unpacked inside the jit)
     lut = _build_l1_lut_jit(jnp.asarray(lib.reshape(-1).astype(np.int32)))
     if use_cache:
         while len(_LUT_CACHE) >= _LUT_CACHE_MAX:
@@ -135,13 +133,10 @@ def pack_rgb(blocks: np.ndarray) -> np.ndarray:
     )
 
 
-#: row width for the match gather. The TPU gather engine is per-INDEX
-#: bound (~8.6 ns/element, table-size independent), but 32-byte row
-#:
-#: fetches cost only ~5 ns/index — so fetching 8 entries per index and
-#: selecting the target lane with vector math (fused, effectively free)
-#: cuts the 16.7M-query match from 144 ms to 84 ms on v5e (measured,
-#: tools/tpu_r2_experiments2.py C1/C2; widths 2/4/16 are all slower).
+#: row width for the match gather: fetch 8 entries (one 32-byte row) per
+#: index and select the target lane with fused vector math. Chosen for an
+#: index-rate-bound gather engine; a plain 1-wide gather is not yet
+#: measured against it on the H100 (ROADMAP Speed 6).
 _ROW_W = 8
 _ROW_SHIFT = 3
 

@@ -1,5 +1,5 @@
 """Multi-chip parallel layer: mesh construction + sharded match/composite
-+ multi-controller (pod) support."""
++ multi-controller (multi-host) support."""
 
 from emosaic_tpu.parallel.distributed import (  # noqa: F401
     fetch,

@@ -1,10 +1,10 @@
 """Multi-process (multi-controller) SPMD support.
 
-On a TPU pod each host runs one copy of the program over its local chips
-and `jax.distributed.initialize()` joins them into one global runtime:
-`jax.devices()` then spans every chip in the slice while
-`jax.local_devices()` stays host-local, and the ("data", "model") mesh
-from `parallel.mesh.make_mesh` simply becomes a pod-wide mesh — the
+On a multi-host cluster each host runs one copy of the program over its
+local devices and `jax.distributed.initialize()` joins them into one
+global runtime: `jax.devices()` then spans every device in the cluster
+while `jax.local_devices()` stays host-local, and the ("data", "model")
+mesh from `parallel.mesh.make_mesh` simply becomes a cluster-wide mesh — the
 sharded kernels in `parallel.sharded` are written against the global
 mesh and do not change. What DOES change at process boundaries is host
 I/O: a global `jax.Array` is only partially addressable from any one
@@ -12,17 +12,17 @@ process, so fetching results must ride a collective (`fetch` below)
 instead of `jax.device_get`.
 
 The same multi-controller model runs here over plain CPU processes (the
-gloo collectives backend), which is how CI validates it without pod
-hardware: `tools/cpu_multiproc_dryrun.py` runs the production sharded
+gloo collectives backend), which is how CI validates it without a
+cluster: `tools/cpu_multiproc_dryrun.py` runs the production sharded
 scorers across two OS processes x four virtual devices each, where every
 `psum`/`all_gather` in the kernels genuinely crosses a process boundary,
 and bit-compares against the single-process oracles.
 
 Reference analogue: none — the reference is single-host rayon
 parallelism (rendering.rs:68-70) with a hard 32 767-tile cap. This is
-the DCN/pod axis of the TPU-native scale-out design (data/model
-sharding over ICI is `parallel.sharded`; this module adds the
-multi-host layer those meshes ride on in a pod).
+the multi-host axis of the scale-out design (data/model sharding within
+a host is `parallel.sharded`; this module adds the multi-host layer
+those meshes ride on). One process drives all the cards of one host.
 """
 
 from __future__ import annotations
@@ -40,9 +40,9 @@ def init_distributed(
 ) -> None:
     """Join this process into a multi-controller JAX runtime.
 
-    On TPU pod VMs call with no arguments — jax discovers the
-    coordinator and process topology from the TPU metadata server. Off
-    pod (CPU validation, manual clusters), pass all three or set the
+    On clusters whose environment JAX can auto-detect, call with no
+    arguments. Otherwise (CPU validation, manual clusters), pass all
+    three or set the
     environment: EMOSAIC_COORDINATOR (host:port), EMOSAIC_NUM_PROCESSES,
     EMOSAIC_PROCESS_ID. Idempotent: a second call is a no-op once the
     runtime is live (jax raises on re-initialize; callers like the CLI
@@ -59,7 +59,7 @@ def init_distributed(
     if process_id is None and "EMOSAIC_PROCESS_ID" in os.environ:
         process_id = int(os.environ["EMOSAIC_PROCESS_ID"])
     if coordinator is None and num_processes is None:
-        # pod-style auto discovery (TPU metadata); single-process hosts
+        # cluster auto-detection; single-process hosts
         # without a cluster env just stay single-controller
         try:
             jax.distributed.initialize()
@@ -67,12 +67,12 @@ def init_distributed(
             if os.environ.get("EMOSAIC_DISTRIBUTED"):
                 # the user explicitly demanded a multi-controller run
                 # (CLI EMOSAIC_DISTRIBUTED=1): silently degrading to
-                # single-controller would make every pod host render the
+                # single-controller would make every host render the
                 # full image independently — fail loudly instead
                 raise RuntimeError(
                     "EMOSAIC_DISTRIBUTED=1 but the multi-controller "
-                    "runtime could not initialize (no pod metadata / "
-                    "coordinator env?) — set EMOSAIC_COORDINATOR, "
+                    "runtime could not initialize (no cluster "
+                    "environment?) — set EMOSAIC_COORDINATOR, "
                     "EMOSAIC_NUM_PROCESSES, EMOSAIC_PROCESS_ID for "
                     "manual clusters"
                 ) from e
@@ -99,7 +99,7 @@ def is_rank0() -> bool:
     """True in single-controller processes and on global rank 0.
 
     The CLI gates user-facing file writes (output image, stats, HTML) on
-    this under EMOSAIC_DISTRIBUTED, the standard pod discipline: every
+    this under EMOSAIC_DISTRIBUTED, the standard multi-host discipline: every
     rank computes the same SPMD program, one rank does host I/O."""
     return jax.process_index() == 0
 
@@ -107,10 +107,10 @@ def is_rank0() -> bool:
 def fetch(x) -> np.ndarray:
     """`device_get` that survives multi-controller sharding.
 
-    A global `jax.Array` sharded over a pod-wide mesh is only partially
+    A global `jax.Array` sharded over a cluster-wide mesh is only partially
     addressable from any one process; `jax.device_get` refuses it. This
     all-gathers the array to every process first (one collective over
-    ICI/DCN — or gloo on the CPU validation path) and returns host
+    the interconnect — or gloo on the CPU validation path) and returns host
     numpy. Fully-addressable arrays (single-process, or replicated
     outputs) take the plain `device_get` path, so single-controller
     behavior and cost are unchanged.

@@ -2,10 +2,10 @@
 
 Shards the 256^3 RGB lattice of `ops.lut.build_l1_lut` over the mesh along
 the b (outermost) axis and runs the separable min-plus (chamfer) distance
-transform per shard. TPU-native counterpart of the kd-tree build the
+transform per shard. Device counterpart of the kd-tree build the
 reference performs once per render (tileset.rs:178-190) — here scaled over
-ICI for multi-chip pipelines where each chip keeps a lattice shard
-resident.
+the interconnect for multi-device pipelines where each device keeps a
+lattice shard resident.
 
 Algorithm: instead of exchanging halo planes per log-doubling relaxation
 pass (18 passes x up-to-128-plane halos along the sharded axis), each 1D

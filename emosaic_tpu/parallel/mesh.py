@@ -2,11 +2,14 @@
 
 The mosaic workload has two natural parallel axes (SURVEY.md section 2.6):
 - "data": the source-block axis — pure data parallelism over independent
-  argmin problems (the TPU equivalent of the reference's rayon block
+  argmin problems (the device equivalent of the reference's rayon block
   parallelism, rendering.rs:68-70);
 - "model": the tile-library axis — each shard searches its slice of the
-  library and partial (min, argmin) results are combined over ICI (the
-  tensor-parallel analogue).
+  library and partial (min, argmin) results are combined over the
+  interconnect (the tensor-parallel analogue).
+
+The mesh follows the algorithm alone: on a host whose cards are joined
+all to all (NVLink), any layout of the devices is as good as another.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ def make_mesh(
     Args:
       n_devices: number of devices (default: all).
       model: library-axis shards (default: 1 — pure data parallelism;
-        library sharding pays an all-gather of per-shard winners over ICI,
+        library sharding pays an all-gather of per-shard winners,
         worth it only when the library shard doesn't fit or the distance
         work dominates).
     """

@@ -1,12 +1,12 @@
 """Sharded matching + composition over a ("data", "model") mesh.
 
-TPU-native scaling design (replaces nothing in the reference — it is
+Multi-device scaling design (replaces nothing in the reference — it is
 single-process; SURVEY.md section 2.6 maps rayon data parallelism to this):
 
 - source blocks are sharded over "data" (independent argmin problems);
 - the tile library is sharded over "model": each shard searches its slice
   and the per-shard (min, global-row) winners are combined with an
-  all-gather over ICI followed by a lexicographic (distance, row) fold —
+  all-gather followed by a lexicographic (distance, row) fold —
   an associative combine, so the result is bit-identical to the
   single-chip kernel including the lowest-row tie-break;
 - padding rows (to make shapes divisible) are *copies of row/block 0*, so
@@ -36,9 +36,9 @@ from emosaic_tpu.ops.distance import I32_MAX, _pad_topk, _stripe_f32_ok
 
 
 def _absdiff_stripe(bc, lib_w, f32: bool):
-    """Per-shard |x-t| stripe; f32 lanes run ~1.5x i32 on v5e (see
-    ops.distance._STRIPE_F32_MAX_BYTES) and are exact here (u8-valued
-    operands, row sums < 2^24) — results are bit-identical either way."""
+    """Per-shard |x-t| stripe, in f32 when the library copy fits (see
+    ops.distance._STRIPE_F32_MAX_BYTES); exact either way (u8-valued
+    operands, row sums < 2^24), so results are bit-identical."""
     if f32:
         return (
             jnp.abs(bc.astype(jnp.float32)[:, None, :] - lib_w[None])
@@ -151,11 +151,10 @@ def _combine_over_model(dist, row):
 
 
 # ---------------------------------------------------------------------------
-# jit factories (review r4): each kernel's mesh-sharded jit used to be a
-# per-call closure, so the streamed bank route retraced and recompiled an
-# identical program for EVERY ~4 GiB library bank (30-60 s per compile on
-# the remote-compile path). The lru_cache keys carry everything the
-# closures captured; same mesh + shapes -> the cached PjitFunction.
+# jit factories: a per-call closure would retrace and recompile an
+# identical program for EVERY streamed library bank. The lru_cache keys
+# carry everything the closures capture; same mesh + shapes -> the cached
+# PjitFunction.
 # ---------------------------------------------------------------------------
 
 
@@ -282,7 +281,7 @@ def _topk_run_jit(mesh: Mesh, ls: int, kk: int, real_l: int):
 @functools.lru_cache(maxsize=64)
 def _adaptive_run_jit(
     mesh: Mesh, d: int, g: int, chan: bool, bc: int, cap: int,
-    real_l: int, bc2: int, m: int, kk: int, use_dma: bool,
+    real_l: int, bc2: int, m: int, kk: int,
 ):
     from emosaic_tpu.ops import distance as dd
 
@@ -308,7 +307,7 @@ def _adaptive_run_jit(
             )
             return dd._ad_rescore_jit(
                 bf, vals, cols, s_min, lf_rep,
-                d=d, bc=bc2, m=m, k=kk, real_l=real_l, use_dma=use_dma,
+                d=d, bc=bc2, m=m, k=kk, real_l=real_l,
             )
 
         return jax.shard_map(
@@ -340,7 +339,7 @@ def sharded_l1_argmin(
     blocks = np.asarray(blocks, dtype=np.uint8)
     lib = np.asarray(lib, dtype=np.uint8)
     b, l = blocks.shape[0], lib.shape[0]
-    if lib.size // n_model > dd._DEVICE_LIB_BYTES_MAX and l > dd._TL_SEG:
+    if lib.size // n_model > dd._lib_budget() and l > dd._TL_SEG:
         da, ra = dd.l1_topk_streamed(
             blocks,
             lib,
@@ -359,7 +358,7 @@ def sharded_l1_argmin(
     # padded lib rows are copies of row 0 with higher indices: they can
     # never be selected; padded blocks are sliced off here. fetch, not a
     # raw sharded return: production callers np.asarray these, which
-    # raises under multi-controller (review r4)
+    # raises under multi-controller
     return fetch(dist)[:b], fetch(row)[:b]
 
 
@@ -372,7 +371,7 @@ def sharded_l1_argmin_ring(
     ppermute, each hop folding a partial (min, global-row) result).
 
     Communication per device is the library shard size x (n-1) hops over
-    ICI — preferable to `sharded_l1_argmin`'s result all-gather when the
+    the interconnect — preferable to `sharded_l1_argmin`'s result all-gather when the
     block count dwarfs the library. Results are bit-identical to the
     single-chip kernel (lexicographic fold preserves the lowest-row
     tie-break regardless of hop order). Uses the flattened mesh (both axes)
@@ -386,7 +385,7 @@ def sharded_l1_argmin_ring(
     n = len(devs)
     blocks = np.asarray(blocks, dtype=np.uint8)
     lib = np.asarray(lib, dtype=np.uint8)
-    if lib.size // n > dd._DEVICE_LIB_BYTES_MAX and lib.shape[0] > dd._TL_SEG:
+    if lib.size // n > dd._lib_budget() and lib.shape[0] > dd._TL_SEG:
         da, ra = dd.l1_topk_streamed(
             blocks,
             lib,
@@ -442,7 +441,7 @@ def sharded_l1_topk(
 
     The multi-chip no-repeat scorer: blocks shard over "data" (pure DP),
     the library over "model"; per-shard top-k lists are all-gathered over
-    ICI and merged with a two-key (distance, row) sort — bit-identical to
+    and merged with a two-key (distance, row) sort — bit-identical to
     ops.distance.l1_topk_stripes including tie order and the
     I32_MAX/row-0 padding convention when k > L.
     """
@@ -453,7 +452,7 @@ def sharded_l1_topk(
     blocks = np.asarray(blocks, dtype=np.uint8)
     lib = np.asarray(lib, dtype=np.uint8)
     b, l = blocks.shape[0], lib.shape[0]
-    if lib.size // n_model > dd._DEVICE_LIB_BYTES_MAX and l > dd._TL_SEG:
+    if lib.size // n_model > dd._lib_budget() and l > dd._TL_SEG:
         # per-"model" shard exceeds the device-resident budget: stream
         # host banks through this same sharded kernel (no re-entry —
         # banks are clamped under the whole-device budget)
@@ -496,7 +495,7 @@ def sharded_l1_topk_adaptive(
     lib = np.asarray(lib, dtype=np.uint8)
     b, d = blocks.shape
     l = lib.shape[0]
-    if lib.size > dd._DEVICE_LIB_BYTES_MAX and l > dd._TL_SEG:
+    if lib.size > dd._lib_budget() and l > dd._TL_SEG:
         # the library replicates per device, so past the device-resident
         # budget stream host banks — each bank scored by THIS sharded
         # scorer (bank streaming composes with block sharding; banks are
@@ -513,7 +512,7 @@ def sharded_l1_topk_adaptive(
     # eligibility is the shared plan with l1_topk_adaptive — one gate,
     # no drift (it is also _ad_prepare's prefetch decision, so a
     # declined bank never receives a wasted handle)
-    eligible, g, chan, kk, lp, nseg, m, cap, use_dma = dd._ad_plan(
+    eligible, g, chan, kk, lp, nseg, m, cap = dd._ad_plan(
         b, l, d, k
     )
     if not eligible:
@@ -552,12 +551,12 @@ def sharded_l1_topk_adaptive(
     )
     _, _, ok_s = dd._ad_rescore_jit(
         bf0, v0, c0, s0, lf_dev,
-        d=d, bc=bc2, m=m, k=kk, real_l=l, use_dma=use_dma,
+        d=d, bc=bc2, m=m, k=kk, real_l=l,
     )
     if np.asarray(jax.device_get(ok_s)).mean() < 0.5:
         return sharded_l1_topk(blocks, lib, k, mesh)
 
-    run = _adaptive_run_jit(mesh, d, g, chan, bc, cap, l, bc2, m, kk, use_dma)
+    run = _adaptive_run_jit(mesh, d, g, chan, bc, cap, l, bc2, m, kk)
     out_d, out_r, ok_all = dd._run_block_slices(
         blocks_p,
         b_slice,
@@ -590,9 +589,9 @@ def sharded_mosaic_step(
     single-chip-consistent global row numbering -> sharded match (data x
     model) -> composite gather (sharded over "data" block-rows).
 
-    Boundary arrays are 2D with large minor dims (see ops/composite.py TPU
-    layout note): tiles travel as [T, ts*ts*3], source as [H, W*3], the
-    output as [H_out, W_out*3].
+    Boundary arrays are 2D with the channels interleaved in the minor dim:
+    tiles travel as [T, ts*ts*3], source as [H, W*3], the output as
+    [H_out, W_out*3].
 
     Args:
       tiles: [T, ts, ts, 3] uint8 (T divisible by mesh "model" size).

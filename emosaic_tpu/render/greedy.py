@@ -18,7 +18,7 @@ kd-tree): two variants exist —
   rendering.rs:387-390 is exactly a priority queue), with a 10-NN refill
   from the live tree when a list is exhausted (rendering.rs:383-385).
 
-TPU-native decomposition: candidate lists come from the device top-k kernel
+Device decomposition: candidate lists come from the device top-k kernel
 in one batch; this module runs only the cheap sequential assignment over
 those lists, falling back to an exact masked re-query (refill callback) for
 the rare exhausted blocks. A C++ engine (native/) accelerates the loop; the

@@ -131,12 +131,13 @@ def match_blocks(
     hybrid: bool = False,
     mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Dispatch to the LUT (mode 1), the dense L1 kernel, the MXU hybrid
-    (L2 prefilter + exact-L1 rescore, `hybrid=True`), or the MXU L2 fast
-    mode (performance additions — the reference is L1-only).
+    """Dispatch to the LUT (mode 1), the dense L1 argmin, the hybrid
+    (L2 prefilter + exact-L1 rescore, `hybrid=True`), or the L2 fast mode
+    (performance additions — the reference is L1-only). The dense
+    argmin's route is the device's (ops/backend.py).
 
     With `mesh` (a ("data", "model") jax Mesh), the exact-L1 match shards
-    blocks over "data" and the library over "model" with an ICI
+    blocks over "data" and the library over "model" with an all-gather
     (min, row) combine — bit-identical to the single-device kernels
     (tests/test_sharding.py). The l2/hybrid fast modes and an explicit
     `use_lut="always"` stay single-device (documented in --mesh help).

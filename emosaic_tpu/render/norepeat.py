@@ -1,6 +1,6 @@
 """Global-greedy no-repeat renderer (reference: rendering.rs:262-401).
 
-Two phases, mapped TPU-first:
+Two phases, mapped device-first:
 1. "Scoring": the reference fetches 100 000 NN per block in parallel
    (rendering.rs:307-321) — with its 32 767-tile cap that is simply the
    *full sorted candidate list*. Here the device top-k kernel produces the
@@ -84,7 +84,7 @@ def render_nto1_no_repeat(
         scorer_used = "hybrid"
     elif mesh is not None:
         scorer_used = "sharded-exact"
-    elif b * l <= _EXACT_BUDGET and lib.nbytes <= _distance._DEVICE_LIB_BYTES_MAX:
+    elif b * l <= _EXACT_BUDGET and lib.nbytes <= _distance._lib_budget():
         # exact-full uploads the whole library for the dense matrix;
         # beyond-budget libraries take the adaptive route, whose gate
         # streams host banks (truncation to K does not change assignment
@@ -98,7 +98,7 @@ def render_nto1_no_repeat(
         # sharded over every mesh device (library replicated); shapes it
         # declines — and concentrated data caught by its sample gate —
         # route inside to the stripes scorer (blocks over "data", library
-        # over "model", per-shard top-k merged over ICI). Both paths are
+        # over "model", per-shard top-k merged by all-gather). Both paths are
         # bit-identical to the single-chip scorers
         # (tests/test_sharding.py). Truncation to K does not change
         # assignment results (see _TRUNCATED_K note): the greedy engines
@@ -108,7 +108,7 @@ def render_nto1_no_repeat(
         k = min(_TRUNCATED_K, l)
         cd, cr = sharded_l1_topk_adaptive(blocks, lib, k, mesh)
     elif scorer_used == "hybrid":
-        # MXU L2-prefilter + exact-L1 rescore (approximate candidate set,
+        # matmul L2-prefilter + exact-L1 rescore (approximate candidate set,
         # exact distances; ~3.5x faster scoring at flagship scale — see
         # ops/distance.py hybrid section). Assignment still refills
         # exactly, so only candidate-set membership is approximate.
@@ -138,7 +138,7 @@ def render_nto1_no_repeat(
         mode = os.environ.get("EMOSAIC_DEVICE_REFILL", "auto")
         # read the budget at call time (via the module) so tuning or
         # test monkeypatching of distance._DEVICE_LIB_BYTES_MAX applies
-        oversized = lib.nbytes > _distance._DEVICE_LIB_BYTES_MAX  # refiller uploads whole lib
+        oversized = lib.nbytes > _distance._lib_budget()  # refiller uploads whole lib
         want_dev = (
             mode == "1"
             or (mode not in ("0", "off") and l * lib.shape[1] >= _DEVICE_REFILL_MIN_LD)

@@ -67,7 +67,7 @@ class MosaicService:
         crop: bool = False,
         extensions: set[str] | None = None,
         force: bool = False,
-        max_stack_bytes: int = 8 << 30,
+        max_stack_bytes: int | None = None,
         log=lambda *a: print(*a, file=sys.stderr),
     ):
         from emosaic_tpu.cli import get_image_stack
@@ -577,7 +577,13 @@ def main(argv=None) -> int:
     p.add_argument("--crop", action="store_true")
     p.add_argument("--extensions", action="append", default=None)
     p.add_argument("-f", "--force", action="store_true")
-    p.add_argument("--max-stack-bytes", type=int, default=8 << 30)
+    p.add_argument(
+        "--max-stack-bytes",
+        type=int,
+        default=None,
+        help="tile-stack memory cap (default: a share of the device's "
+        "memory, ops/backend.py STACK_FRACTION)",
+    )
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8040)
     p.add_argument(

@@ -56,7 +56,7 @@ def _prep_pool(workers: int):
     compilation-cache setup. Spawned children inherit the parent's
     *current* environment, so EMOSAIC_NO_COMPILE_CACHE=1 (honored by
     __init__) and JAX_PLATFORMS=cpu are set for the pool's lifetime —
-    workers never import jax or touch the parent's TPU client; prep
+    workers never import jax or touch the parent's device client; prep
     itself is PIL/numpy only."""
     import concurrent.futures
     import multiprocessing

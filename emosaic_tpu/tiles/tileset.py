@@ -1,6 +1,6 @@
 """TileSet container (reference: src/mosaic/tiles/tileset.rs).
 
-TPU-first representation: palettes live in one dense `[T, N, 3]` uint8
+Device-first representation: palettes live in one dense `[T, N, 3]` uint8
 array (the device search matrix is derived from it via
 `ops.distance.build_library`), not per-tile objects. Per-tile metadata
 (paths, EXIF dates) stays host-side.

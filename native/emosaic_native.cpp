@@ -1,6 +1,6 @@
 // emosaic_tpu native runtime helpers.
 //
-// The TPU owns every batched kernel (analysis, distance, top-k, composite);
+// The GPU owns every batched kernel (analysis, distance, top-k, composite);
 // what remains host-side is the inherently *sequential* state machine of
 // no-repeat assignment (a mutating used-set — the reference serializes this
 // through a RwLock'd kd-tree, rendering.rs:163-167 / :346-392) and small
@@ -147,9 +147,9 @@ struct Ctx {
   std::vector<uint8_t> used;
   std::vector<Stream> streams;
   // live count of unused library rows: when it hits zero, every refill
-  // is known-empty without scanning. At full library consumption (the
-  // SCALE_r03 phase-G/H regime) ~96k post-exhaustion refills otherwise
-  // each pay a pruned row_sums scan — 55 s of the measured 83 s.
+  // is known-empty without scanning. At full library consumption ~96k
+  // post-exhaustion refills would otherwise each pay a pruned row_sums
+  // scan (most of that run's assignment time).
   int64_t n_unused = 0;
   // optional batched device refill (see emosaic_refill_cb)
   emosaic_refill_cb cb = nullptr;

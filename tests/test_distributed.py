@@ -5,8 +5,8 @@ tests/test_sharding.py proves the sharded kernels on a single-process
 boundaries: tools/cpu_multiproc_dryrun.py joins 2 OS processes x 4
 virtual CPU devices into one global mesh via jax.distributed (gloo
 transport), so every collective in parallel/sharded.py genuinely
-crosses a transport — the closest topology to a TPU pod this 1-host
-environment can express. Reference analogue: none (single-host rayon,
+crosses a transport — the closest topology to a multi-host cluster a
+one-host environment can express. Reference analogue: none (single-host rayon,
 rendering.rs:68-70).
 """
 

@@ -132,15 +132,15 @@ def test_device_memory_stats_parse(monkeypatch):
             return self._ms
 
     devs = [
-        _Dev("TPU_0", {"bytes_in_use": 5 << 20, "peak_bytes_in_use": 7 << 20,
+        _Dev("gpu_0", {"bytes_in_use": 5 << 20, "peak_bytes_in_use": 7 << 20,
                        "bytes_limit": 16 << 30}),
         _Dev("CPU_0", None),          # CPU backend: no counters
-        _Dev("TPU_1", {"bytes_in_use": 3 << 20}),  # no peak key -> falls back
+        _Dev("gpu_1", {"bytes_in_use": 3 << 20}),  # no peak key -> falls back
         _Dev("BAD_0", RuntimeError("boom")),       # raising device skipped
     ]
     monkeypatch.setattr(jax, "local_devices", lambda: devs)
     stats = monitor.get_device_memory_stats()
-    assert [s["device"] for s in stats] == ["TPU_0", "TPU_1"]
+    assert [s["device"] for s in stats] == ["gpu_0", "gpu_1"]
     assert stats[0]["peak_bytes_in_use"] == 7 << 20
     assert stats[0]["bytes_limit"] == 16 << 30
     assert stats[1]["peak_bytes_in_use"] == 3 << 20  # bytes_in_use fallback
@@ -160,9 +160,9 @@ def test_print_runtime_stats_device_memory(monkeypatch):
         monitor,
         "get_device_memory_stats",
         lambda: [
-            {"device": "TPU_0", "bytes_in_use": 1 << 20,
+            {"device": "gpu_0", "bytes_in_use": 1 << 20,
              "peak_bytes_in_use": 2 << 20, "bytes_limit": 16 << 30},
-            {"device": "TPU_1", "bytes_in_use": 1 << 20,
+            {"device": "gpu_1", "bytes_in_use": 1 << 20,
              "peak_bytes_in_use": 3 << 20, "bytes_limit": 0},
         ],
     )
@@ -173,6 +173,6 @@ def test_print_runtime_stats_device_memory(monkeypatch):
         time.time() - 1.5, m, log=lambda *a: lines.append(" ".join(map(str, a)))
     )
     joined = "\n".join(lines)
-    assert "Device memory [TPU_0]: peak 2.0 MB / 16384 MB limit" in joined
-    assert "Device memory [TPU_1]: peak 3.0 MB" in joined
-    assert "TPU_1]: peak 3.0 MB / " not in joined  # no limit printed when 0
+    assert "Device memory [gpu_0]: peak 2.0 MB / 16384 MB limit" in joined
+    assert "Device memory [gpu_1]: peak 3.0 MB" in joined
+    assert "gpu_1]: peak 3.0 MB / " not in joined  # no limit printed when 0

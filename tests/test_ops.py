@@ -319,18 +319,16 @@ def test_l2_argmin_oracle(rng, n_cells):
     assert (got == full.min(1)).all()
 
 
-def test_compose_host_row_chunking(rng, monkeypatch):
-    # force the scalar-prefetch row budget low to exercise chunk+concat
+def test_compose_host_row_chunking(rng):
+    # one-block-row bands, concatenated, equal the whole-mosaic compose
     from emosaic_tpu.ops import composite as comp
 
-    monkeypatch.setattr(comp, "_DMA_MAX_ROWS", 8)
     ts = 4
     stack = rng.integers(0, 256, size=(5, ts, ts, 3), dtype=np.uint8)
     items = rng.integers(1, 6, size=(6, 3)).astype(np.int32)
     items[2, 1] = -4
     items[3, 0] = 0
-    chunked = comp.compose_mosaic(items, stack)
-    monkeypatch.setattr(comp, "_DMA_MAX_ROWS", 131072)
+    chunked = np.concatenate(list(comp.iter_bands(items, stack, band_rows=1)))
     full = comp.compose_mosaic(items, stack)
     assert (chunked == full).all()
     assert (chunked[3 * ts : 4 * ts, :ts] == 0).all()  # item 0 -> black
@@ -420,7 +418,7 @@ def test_l1_hybrid_exact_on_small_library(rng):
 
 
 def test_l1_hybrid_rescore_distances_are_exact_l1(rng):
-    # large-enough library to engage the MXU prefilter: returned rows may
+    # large-enough library to engage the matmul prefilter: returned rows may
     # be approximate, but their distances must be the exact int32 L1
     from emosaic_tpu.ops.distance import l1_argmin_hybrid
 
@@ -585,10 +583,9 @@ def test_l1_topk_adaptive_tie_storm(rng):
 
 
 def test_ad_params_scaling_rule():
-    # the measured anchors (tools/tpu_r10_ad200k.py, tpu_r17_ad1M.py):
-    # 200k rows (nseg=1563) keeps m=1024/cap=8; 1M rows (nseg=7813)
-    # needs m=4096 for ~100% certification; small libraries keep the
-    # r2-swept defaults and explicit tiny (m, cap) pass through.
+    # the anchors: 200k rows (nseg=1563) keeps m=1024/cap=8; 1M rows
+    # (nseg=7813) needs m=4096 for ~100% certification; small libraries
+    # keep the defaults and explicit tiny (m, cap) pass through.
     from emosaic_tpu.ops.distance import _ad_params
 
     assert _ad_params(100) == (1024, 16)
@@ -602,8 +599,7 @@ def test_ad_params_scaling_rule():
 def test_ad_b_slice_survivor_budget():
     # the slice length shrinks with nseg so the [slice, nseg*cap] i32 x2
     # survivor lists never outgrow the _AD_SURV_BYTES budget; 200k-row
-    # regime keeps the full 16384-row slice, megascale shrinks it to the
-    # probe-validated values (tools/tpu_r16/r18)
+    # regime keeps the full 16384-row slice, megascale shrinks it
     from emosaic_tpu.ops.distance import _AD_SURV_BYTES, _ad_b_slice
 
     assert _ad_b_slice(1563, 8, 128) == 16384
@@ -937,19 +933,18 @@ def test_l1_topk_adaptive_gate_routes_oversized_to_streamed(rng, monkeypatch):
     np.testing.assert_array_equal(r_a, np.asarray(r_o))
 
 
-def test_stream_bank_rows_fits_one_dma_bank():
-    """Default streamed banks must equal `_dma_bank_rows` at the
-    zero-padded width — the property that makes `_lib_banks` return a
-    1-tuple (the proven single-buffer device path) for every uploaded
-    bank, full or ragged — for 1024-aligned and unaligned widths."""
+def test_stream_bank_rows_fits_one_dma_bank(monkeypatch):
+    """Default streamed banks must equal `_dma_bank_rows` at the row
+    width — the property that makes `_lib_banks` return a 1-tuple (the
+    single-buffer device path) for every uploaded bank, full or ragged."""
     from emosaic_tpu.ops import distance
 
+    monkeypatch.setattr(distance, "_DEVICE_LIB_BYTES_MAX", 6_200_000_000)
     for d in (12, 48, 192, 768, 3072, 49152):
         rb = distance._stream_bank_rows(d)
-        dp = distance._pad_width(d)
-        assert rb == max(distance._TL_SEG, distance._dma_bank_rows(dp))
+        assert rb == max(distance._TL_SEG, distance._dma_bank_rows(d))
         assert rb % distance._TL_SEG == 0
-        assert rb * dp <= distance._DMA_LIB_BYTES_MAX
+        assert rb * d <= distance._DMA_LIB_BYTES_MAX
         assert rb * d <= distance._DEVICE_LIB_BYTES_MAX
 
 
@@ -980,7 +975,7 @@ def test_l1_argmin_oversized_library_streams(rng, monkeypatch):
 
 
 def test_l1_topk_hybrid_oversized_library_streams_exact(rng, monkeypatch):
-    """Past the budget the hybrid's MXU prefilter cannot hold the
+    """Past the budget the hybrid's matmul prefilter cannot hold the
     library; the gate reroutes to the streamed scorer — which upgrades
     the hybrid contract to a fully EXACT candidate set."""
     from emosaic_tpu.ops import distance
@@ -1284,7 +1279,7 @@ def test_l1_topk_streamed_prefetch_error_propagates(rng):
 
 
 def test_l2_argmin_streams_beyond_budget(rng, monkeypatch):
-    """l2_argmin's MXU path keeps ~3x the library bytes resident (u8 +
+    """l2_argmin's matmul path keeps ~3x the library bytes resident (u8 +
     bf16 copy); past the budget it must stream host banks through itself
     (recursion-safe: banks fit 3x inside the budget) and agree with the
     direct kernel."""
@@ -1303,21 +1298,6 @@ def test_l2_argmin_streams_beyond_budget(rng, monkeypatch):
     d_t, r_t = map(np.asarray, distance.l2_argmin(blocks, lib))
     np.testing.assert_array_equal(d_t, d_ref)
     np.testing.assert_array_equal(r_t, r_ref)
-
-
-def test_rescore_dma_gate_respects_addressing_limit(monkeypatch):
-    """Libraries between the 4 GiB DMA addressing limit and the device
-    budget must take the gather rescore, not crash at trace time in
-    _l1_rows_dma (review r4: the hybrid path handed >4 GiB single
-    buffers to the DMA kernel)."""
-    from emosaic_tpu.ops import distance
-
-    d = 3072  # mode 32, d % 128 == 0 (the DMA-eligible shape class)
-    dp = distance._pad_width(d)
-    limit_rows = distance._DMA_LIB_BYTES_MAX // dp
-    assert distance._rescore_use_dma(limit_rows, d, platform="tpu")
-    assert not distance._rescore_use_dma(limit_rows + 1, d, platform="tpu")
-    assert not distance._rescore_use_dma(128, d, platform="cpu")
 
 
 # ---------------------------------------------------------------------------

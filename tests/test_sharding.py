@@ -76,7 +76,7 @@ def test_ring_rotation_matcher_bit_identical(rng, devices, n):
 
 @pytest.mark.parametrize("data,model", [(8, 1), (4, 2), (1, 8)])
 def test_sharded_topk_bit_identical(rng, devices, data, model):
-    # multi-chip no-repeat scorer: per-shard stripe top-k merged over ICI
+    # multi-chip no-repeat scorer: per-shard stripe top-k merged by all-gather
     # must equal the single-chip stripes, including cross-shard ties and
     # k > L padding
     from emosaic_tpu.ops.distance import l1_topk_stripes
@@ -102,8 +102,8 @@ def test_sharded_topk_bit_identical(rng, devices, data, model):
 
 @pytest.mark.parametrize("n", [8, 4, 2, 1])
 def test_sharded_lut_build_bit_identical(rng, devices, n):
-    # VERDICT r1 #5: the chamfer LUT build sharded over the lattice b axis
-    # (parallel-prefix carries over ICI) must equal the single-chip build
+    # the chamfer LUT build sharded over the lattice b axis
+    # (parallel-prefix carries across devices) must equal the single-chip build
     # bit-for-bit, including lowest-row ties from duplicated colors.
     from emosaic_tpu.ops.lut import build_l1_lut
     from emosaic_tpu.parallel import sharded_build_l1_lut

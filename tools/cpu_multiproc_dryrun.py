@@ -4,9 +4,10 @@ REAL process boundaries.
 
 The in-repo sharding CI (tests/test_sharding.py, dryrun_multichip) runs
 on a single-process 8-device virtual CPU mesh — XLA collectives there
-never leave one process's runtime. On a TPU pod they do: each host runs
-its own controller over its local chips and every all_gather/psum in
-`parallel/sharded.py` crosses ICI/DCN. This tool reproduces that
+never leave one process's runtime. On a multi-host cluster they do: each
+host runs its own controller over its local devices and every
+all_gather/psum in `parallel/sharded.py` crosses the network. This tool
+reproduces that
 topology with what this machine has: TWO OS processes x FOUR virtual
 CPU devices each, joined by `jax.distributed.initialize` (gloo
 transport), forming one global 8-device ("data", "model") mesh.
@@ -28,12 +29,13 @@ Usage:
   python tools/cpu_multiproc_dryrun.py            # parent: spawns ranks
   python tools/cpu_multiproc_dryrun.py --rank N --port P   # child
 
-Exit 0 = every check passed in both ranks. Runs entirely on CPU; safe
-during a TPU outage. ~60 s (fresh XLA CPU compiles in both children).
+Exit 0 = every check passed in both ranks. Runs entirely on CPU and
+never takes an accelerator. ~60 s (fresh XLA CPU compiles in both
+children).
 
 Reference analogue: none — the reference is single-host rayon
-(rendering.rs:68-70); this is the pod/DCN axis of the TPU-native
-design validated as far as this 1-host environment allows.
+(rendering.rs:68-70); this is the multi-host axis of the design
+validated as far as a one-host environment allows.
 """
 
 from __future__ import annotations
